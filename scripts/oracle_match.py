@@ -1,19 +1,20 @@
-"""North-star T*-match measurement: TPU f32 HOP-DDP vs the f64 CPU
-brute-force oracle (the reference's own ground truth — BASELINE.md
-"bit-matched T* selection vs the reference brute-force baseline").
+"""T*-match measurement: HOP-DDP (propagator) solves vs the f64 brute-force
+oracle (the reference's own ground truth — BASELINE.md "bit-matched T*
+selection vs the reference brute-force baseline").
 
-Two-process protocol (the oracle must run in true f64, which exists only on
-CPU; the candidate must run on the real TPU):
-
-    python scripts/oracle_match.py cpu   # writes results/oracle_f64.npz
-    python scripts/oracle_match.py tpu   # writes results/oracle_f32.npz
-    python scripts/oracle_match.py report
+    python scripts/oracle_match.py oracle     # CPU f64 brute force -> results/oracle_f64*.npz
+    python scripts/oracle_match.py candidate  # f64 propagator on the default device
+    python scripts/oracle_match.py picks      # CPU f64 propagator, every case -> results/cpu_f64_picks*.npz
+    python scripts/oracle_match.py report     # score candidate vs oracle
+    python scripts/oracle_match.py verify     # re-check each mismatch on the candidate's trajectory
+    python scripts/oracle_match.py summary    # report over every case with a candidate file
 
 Problem set (default): B=128 quadrotor problems, x0 positions perturbed by
-sigma=0.4 (the reference trial distribution, /root/reference/run_suite.py:72),
+sigma=0.4 (the reference trial distribution, reference run_suite.py:72),
 max_iter=12 as in the reference suite. OM_CASE selects any registered case;
 non-quadrotor cases perturb x0 with the system's per-case sigma_x0 (the
-suite's trial distribution) and write case-suffixed npz files.
+suite's trial distribution) and write case-suffixed npz files. OM_BATCH and
+OM_SEED set the batch size and the seed.
 """
 
 import os as _os, sys as _sys
@@ -24,297 +25,144 @@ import sys
 
 import numpy as np
 
+from timeopt.runner.oracle_set import make_x0s, suffix
+
 B = int(os.environ.get("OM_BATCH", "128"))
 SEED = int(os.environ.get("OM_SEED", "0"))
 CASE = os.environ.get("OM_CASE", "Quadrotor")
-# OM_PATH=dense: solve the f32 candidates through the dense-tile + trisym
-# serving kernel (the production path for batches > 512) by padding the
-# B=128 problem set to 1024 — so the north-star oracle comparison covers
-# the trisym numerics directly, not just the lanes path the committed
-# artifacts validate. Writes/reads oracle_f32_dense*.npz.
-PATH = os.environ.get("OM_PATH", "lanes")
-# Round-5 mixed-precision candidates (scripts/mixedprec_probe.py): OM_ELEM=f32
-# / OM_QUERY=f32 score the select kernel's element_df=False / query_df=False
-# variants against the f64 oracle. Applied on top of OM_PATH=dense (the
-# serving path) and written to candidate-tagged npz files so the committed
-# production artifacts are never clobbered.
-ELEM = os.environ.get("OM_ELEM", "df")
-QUERY = os.environ.get("OM_QUERY", "df")
 OUT = os.path.join(os.path.dirname(__file__), "..", "results")
+CASES = [
+    "DoubleIntegrator",
+    "Cartpole_SwingUp",
+    "Ballbot_Balance",
+    "Segway_Balance",
+    "Quadrotor",
+    "PointMass_Navigation",
+]
 
 
-def _suffix():
-    return "" if CASE == "Quadrotor" else f"_{CASE}"
+def run(mode, case=CASE):
+    import jax
 
-
-def _knob_kwargs():
-    kw = {}
-    if ELEM == "f32":
-        kw["element_df"] = False
-    if QUERY == "f32":
-        kw["query_df"] = False
-    return kw
-
-
-def _f32_name(suffix):
-    tag = {"lanes": "", "dense": "_dense", "lanes_trisym": "_lanes_trisym"}[PATH]
-    if PATH == "lanes_trisym" and os.environ.get("OM_TRISYM_SCOPE", "both") != "both":
-        tag += "_selonly"
-    if ELEM == "f32":
-        tag += "_ef32"
-    if QUERY == "f32":
-        tag += "_qf32"
-    return f"oracle_f32{tag}{suffix}.npz"
-
-
-def make_x0s(base_x0, sigma_x0):
-    rng = np.random.default_rng(SEED)
-    x0s = np.tile(np.asarray(base_x0, np.float64), (B, 1))
-    if CASE == "Quadrotor":
-        # original protocol (kept for continuity of the committed artifacts)
-        x0s[:, :3] += 0.4 * rng.standard_normal((B, 3))
-    else:
-        x0s += np.asarray(sigma_x0, np.float64) * rng.standard_normal(x0s.shape)
-    return x0s
-
-
-def run(platform):
-    if platform == "cpu":
-        import jax
-
+    if mode in ("oracle", "picks"):
         jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
-        dtype_name = "float64"
-        method = "bruteforce"
-        fname = f"oracle_f64{_suffix()}.npz"
-    else:
-        import jax
-
-        dtype_name = "float32"
-        method = "propagator"
-        fname = _f32_name(_suffix())
-
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from timeopt_tpu.models import get_system
-    from timeopt_tpu.solver.ilqr import SolveOptions, broadcast_problem, solve_batch
+    from timeopt.models import get_system
+    from timeopt.solver.ilqr import SolveOptions, broadcast_problem, solve_batch
 
-    if platform == "tpu" and PATH == "lanes_trisym":
-        # the round-5 batch-of-1 LATENCY routing (use_latency_trisym): trisym
-        # applied on the 128-lane tile (the exact kernel config a padded
-        # batch-of-1 runs; B=128 distinct problems is a strictly stronger
-        # test than the 128 identical lanes of a padded single solve).
-        # Generic/forward kernels unchanged (no trisym there).
-        # NOTE: must FORCE trisym=True — the production dispatch explicitly
-        # passes trisym=use_latency_trisym(B)=False at B=128, which would
-        # silently override a functools.partial's keyword.
-        from timeopt_tpu.ops import pallas_backward, pallas_lft
-
-        def _force_trisym(fn):
-            def wrapped(*args, **kw):
-                kw["trisym"] = True
-                return fn(*args, **kw)
-
-            return wrapped
-
-        pallas_lft.propagator_select_lanes_df_fused_jit = _force_trisym(
-            pallas_lft.propagator_select_lanes_df_fused_jit
-        )
-        # OM_TRISYM_SCOPE=select scores a select-only trisym variant (the
-        # backward stays on the frozen plain-lanes kernel)
-        if os.environ.get("OM_TRISYM_SCOPE", "both") == "both":
-            pallas_backward.backward_lanes_df_jit = _force_trisym(
-                pallas_backward.backward_lanes_df_jit
-            )
-
-    if platform == "tpu" and PATH == "dense":
-        # route the B=128 set through the dense+trisym serving kernels by
-        # padding to a full 1024-batch inside the select dispatch (the
-        # padded lanes repeat problem 0 and are sliced off) — both the
-        # fused kernel and the generic one (extra_stage_cost cases like
-        # PointMass_Navigation route through the latter)
-        from timeopt_tpu.ops import pallas_lft
-        from timeopt_tpu.solver.horizon import _pad_batch
-
-        def _pad_adapter(dense_jit, **kw):
-            # `_lanes_kw` swallows lanes-only dispatch kwargs (the B==1
-            # latency trisym flag): the dense serving kernels have their own
-            # trisym default, which this adapter's **kw controls
-            def adapter(*args, t_min, **_lanes_kw):
-                padded, Bb = _pad_batch(list(args), multiple=1024)
-                return dense_jit(*padded, t_min=t_min, **kw)[:Bb]
-
-            return adapter
-
-        # mixed-precision knobs exist on the FUSED kernel only (the generic
-        # extra_stage_cost kernel stays uniform df32)
-        pallas_lft.propagator_select_lanes_df_fused_jit = _pad_adapter(
-            pallas_lft.propagator_select_dense_df_fused_jit, **_knob_kwargs()
-        )
-        pallas_lft.propagator_select_lanes_df_jit = _pad_adapter(
-            pallas_lft.propagator_select_dense_df_jit
-        )
-
-        # backward: mirror the production routing (dense+trisym for n >= 3;
-        # n = 2 keeps lanes — solver/backward.py gate)
-        from timeopt_tpu.ops import pallas_backward
-
-        _bw_lanes = pallas_backward.backward_lanes_df_jit
-        _bw_dense = pallas_backward.backward_dense_df_jit
-
-        def _bw_adapter(*args, **_lanes_kw):
-            if args[0].shape[-1] < 3:
-                return _bw_lanes(*args)
-            padded, Bb = _pad_batch(list(args), multiple=1024)
-            kappa, K, ok = _bw_dense(*padded, trisym=True)
-            return kappa[:Bb], K[:Bb], ok[:Bb]
-
-        pallas_backward.backward_lanes_df_jit = _bw_adapter
-
-        # forward: B=128 never hits the production B>512 route, so patch the
-        # line search onto the dense kernel too — the dense forward is
-        # bitwise-identical to lanes (scripts/fwd_dense_probe.py), so this
-        # changes nothing numerically, but it makes "mirrors full production
-        # routing" literally true for all three kernel families
-        from timeopt_tpu.ops import pallas_forward
-
-        _fw_dense = pallas_forward.linesearch_dense_df_jit
-
-        def _fw_adapter(system_, alphas_, *args):
-            padded, Bb = _pad_batch(list(args), multiple=1024)
-            Xn, Un, Jn, acc = _fw_dense(system_, alphas_, *padded)
-            return Xn[:Bb], Un[:Bb], Jn[:Bb], acc[:Bb]
-
-        pallas_forward.linesearch_lanes_df_jit = _fw_adapter
-
-    dtype = jnp.dtype(dtype_name)
-    system, mk = get_system(CASE)
-    base = mk(dtype=dtype)
-    x0s = make_x0s(
-        np.asarray(mk(dtype=jnp.float64).x0, np.float64), system.sigma_x0
-    )
-    probs = broadcast_problem(base, B).replace(x0=jnp.asarray(x0s, dtype))
+    method = "bruteforce" if mode == "oracle" else "propagator"
+    prefix = {"oracle": "oracle_f64", "picks": "cpu_f64_picks", "candidate": "oracle_candidate"}[mode]
+    fname = f"{prefix}{suffix(case)}.npz"
+    system, mk = get_system(case)
+    base = mk(dtype=jnp.float64)
+    x0s = make_x0s(case, np.asarray(base.x0, np.float64), system.sigma_x0, B, SEED)
+    probs = broadcast_problem(base, B).replace(x0=jnp.asarray(x0s))
     opts = SolveOptions(method=method, max_iter=12, psd_levels=1)
     res = solve_batch(system, probs, options=opts)
     T = np.asarray(res.T_star)
     J = np.asarray(res.J_star)
     os.makedirs(OUT, exist_ok=True)
-    # J_curve: the final selection curve per problem (tie analysis on the
-    # oracle's own landscape); X/U: final trajectories (~1 MB), so `verify`
-    # can re-evaluate the f64 brute-force curve ON the f32 solve's own final
-    # trajectory — distinguishing genuine selection errors from
-    # iterate-path basin divergence.
-    np.savez(
-        os.path.join(OUT, fname),
-        T=T, J=J, J_curve=np.asarray(res.J_curve),
-        X=np.asarray(res.X), U=np.asarray(res.U),
+    if mode == "picks":
+        # the CPU f64 propagator's own per-problem picks, the reference
+        # chip_smoke.py holds a device's picks to where the brute force differs
+        np.savez(os.path.join(OUT, fname), T=T, J=J)
+    else:
+        # J_curve: the final selection curve per problem (tie analysis on the
+        # oracle's own landscape); X/U: final trajectories, so `verify` can
+        # re-evaluate the f64 brute-force curve ON the candidate's own final
+        # trajectory — distinguishing genuine selection errors from
+        # iterate-path basin divergence.
+        np.savez(
+            os.path.join(OUT, fname),
+            T=T, J=J, J_curve=np.asarray(res.J_curve),
+            X=np.asarray(res.X), U=np.asarray(res.U),
+        )
+    dev = jax.devices()[0]
+    print(
+        f"{mode} {case} on {dev.platform} {dev.device_kind}: wrote {fname}  "
+        f"T* median {np.median(T)}  J median {np.median(J):.4f}"
     )
-    print(f"{platform} {CASE}: wrote {fname}  T* median {np.median(T)}  J median {np.median(J):.4f}")
+
+
+def _score(case):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")  # analysis only
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from timeopt.models import get_system
+    from timeopt.solver.verify import oracle_agreement
+
+    a = np.load(os.path.join(OUT, f"oracle_f64{suffix(case)}.npz"))
+    b = np.load(os.path.join(OUT, f"oracle_candidate{suffix(case)}.npz"))
+    _, mk = get_system(case)
+    w = float(mk(dtype=jnp.float64).w)
+    return a, b, oracle_agreement(b["T"], b["J"], a["T"], a["J"], a["J_curve"], w)
 
 
 def report():
-    a = np.load(os.path.join(OUT, f"oracle_f64{_suffix()}.npz"))
-    b = np.load(os.path.join(OUT, _f32_name(_suffix())))
-    T64, J64 = a["T"], a["J"]
-    T32, J32 = b["T"], b["J"]
-    exact = (T32 == T64).mean()
-    within1 = (np.abs(T32 - T64) <= 1).mean()
-    rel = np.abs(J32 - J64) / np.maximum(np.abs(J64), 1e-12)
-    print(f"{CASE}  B={len(T64)}  T* exact match: {exact:.3f}  within +/-1: {within1:.3f}")
-    print(f"J rel gap: median {np.median(rel):.2e}  max {rel.max():.2e}")
-
-    # tie-aware criterion (VERDICT round-1 item 6): a mismatch is a
-    # COST-EQUIVALENT FLAT TIE when the cost difference is no more than the
-    # pure horizon-length penalty of the T* difference plus one step,
-    # |dJ| <= w * (|dT| + 1) — i.e. the tracking cost is flat between the
-    # two picks and the J gap is the w*T time term itself (the hover-tail
-    # picks of docs/DESIGN.md §5). Mismatches above that bound are genuine
-    # selection errors.
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")  # analysis only — no TPU claim
-    import jax.numpy as jnp
-
-    from timeopt_tpu.models import get_system
-
-    _, mk = get_system(CASE)
-    w = float(mk(dtype=jnp.float64).w)
-    dT = np.abs(T32.astype(np.int64) - T64.astype(np.int64))
-    if "J_curve" in a.files:
-        # landscape-based tie: evaluate BOTH picks on the f64 oracle's own
-        # final J(T) curve — |J64(T32) - J64(T64)| <= w*(|dT|+1) means the
-        # oracle itself rates the two horizons within the time-penalty
-        # resolution of each other (a flat-valley tie), independent of any
-        # iterate-path divergence between the two executions.
-        curve64 = a["J_curve"]  # (B, T_max), index t-1 holds J(T=t)
-        idx = np.arange(len(T64))
-        dJ = np.abs(curve64[idx, T32 - 1] - curve64[idx, T64 - 1])
-        crit = "|J64(T32)-J64(T64)| on oracle curve"
-    else:
-        dJ = np.abs(J32 - J64)
-        crit = "|J32*-J64*| (final costs; includes iterate-path divergence)"
-    tied = dJ <= w * (dT + 1)
-    exact_or_tied = ((T32 == T64) | tied).mean()
+    a, b, sc = _score(CASE)
+    n = sc["n"]
     print(
-        f"tie-aware ({crit} <= w*(|dT|+1), w={w:g}): "
-        f"exact-or-tied {exact_or_tied:.3f}"
+        f"{CASE}  B={n}  T* exact {sc['n_exact']}/{n}  exact-or-tied "
+        f"{sc['n_exact_or_tied']}/{n}  (landscape rule |J_or(T)-J_or(T_or)| <= w*(|dT|+1))"
     )
-    mism = np.nonzero(T32 != T64)[0]
+    print(
+        f"J rel gap: max over exact {sc['max_j_rel_exact']:.2e}, "
+        f"max over tied {sc['max_j_rel_tied']:.2e}"
+    )
+    mism = np.nonzero(~sc["exact"])[0]
     if len(mism):
-        print(f"mismatches ({len(mism)}): idx {mism[:10]}  dT {(T32-T64)[mism][:10]}")
-        print(f"  their J rel gaps: {rel[mism][:10]}")
-        print(f"  cost-equivalent ties among them: {int(tied[mism].sum())}/{len(mism)}")
-        hard = mism[~tied[mism]]
+        print(f"mismatches ({len(mism)}): idx {mism[:10]}  dT {(b['T'] - a['T'])[mism][:10]}")
+        hard = mism[~sc["tied"][mism]]
         if len(hard):
-            print(f"  GENUINE selection errors: idx {hard}  dT {(T32-T64)[hard]}  dJ {dJ[hard]}")
+            print(f"  GENUINE selection errors: idx {hard}  dT {(b['T'] - a['T'])[hard]}")
 
 
 def verify_mismatches():
     """For every T* mismatch: evaluate the f64 brute-force J(T) curve ON THE
-    f32 SOLVE'S OWN final trajectory (cast to f64). If the f32 pick is the
-    argmin of that landscape, the f32 solve solved ITS problem exactly and
-    the mismatch is iterate-path basin divergence (cost-equivalent to ~1e-3,
-    see report()), not a selection error."""
+    candidate's OWN final trajectory. If the candidate's pick is the argmin
+    of that landscape, the candidate solved ITS problem exactly and the
+    mismatch is iterate-path basin divergence, not a selection error."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from timeopt_tpu.models import get_system
-    from timeopt_tpu.solver.cost import argmin_T
-    from timeopt_tpu.solver.horizon import bruteforce_J_curve
-    from timeopt_tpu.solver.ilqr import broadcast_problem
-    from timeopt_tpu.solver.linearize import linearize
+    from timeopt.models import get_system
+    from timeopt.solver.cost import argmin_T
+    from timeopt.solver.horizon import bruteforce_J_curve
+    from timeopt.solver.linearize import linearize
 
-    a = np.load(os.path.join(OUT, f"oracle_f64{_suffix()}.npz"))
-    b = np.load(os.path.join(OUT, _f32_name(_suffix())))
-    if "X" not in b.files:
-        print("oracle_f32 artifact has no trajectories — re-run `tpu` first")
-        return
-    T64, T32 = a["T"], b["T"]
-    mism = np.nonzero(T32 != T64)[0]
+    a = np.load(os.path.join(OUT, f"oracle_f64{suffix(CASE)}.npz"))
+    b = np.load(os.path.join(OUT, f"oracle_candidate{suffix(CASE)}.npz"))
+    T64, Tc = a["T"], b["T"]
+    mism = np.nonzero(Tc != T64)[0]
     if not len(mism):
         print(f"{CASE}: no mismatches")
         return
 
     system, mk = get_system(CASE)
     base = mk(dtype=jnp.float64)
-    x0s = make_x0s(np.asarray(base.x0, np.float64), system.sigma_x0)
+    x0s = make_x0s(CASE, np.asarray(base.x0, np.float64), system.sigma_x0, B, SEED)
     Tm = int(base.T_max)
     own_opt = 0
     for i in mism:
-        prob = jax.tree.map(lambda x: x, base).replace(x0=jnp.asarray(x0s[i]))
+        prob = base.replace(x0=jnp.asarray(x0s[i]))
         X = jnp.asarray(b["X"][i], jnp.float64)[: Tm + 1]
         U = jnp.asarray(b["U"][i], jnp.float64)[:Tm]
         A, B_ = linearize(system.step, X, U, "ad")
         curve = bruteforce_J_curve(system, prob, A, B_, X, U, psd_levels=1)
         T_own = int(argmin_T(curve, prob.T_min, prob.T_max))
-        ok = T_own == int(T32[i])
+        ok = T_own == int(Tc[i])
         own_opt += ok
         print(
-            f"  idx {i}: T32={int(T32[i])} T64={int(T64[i])}  f64-argmin on f32's "
-            f"own trajectory: {T_own}  {'OWN-OPTIMAL' if ok else 'SELECTION ERROR'}"
+            f"  idx {i}: T={int(Tc[i])} T_oracle={int(T64[i])}  f64-argmin on the "
+            f"candidate's own trajectory: {T_own}  {'OWN-OPTIMAL' if ok else 'SELECTION ERROR'}"
         )
     print(
         f"{CASE}: {own_opt}/{len(mism)} mismatches are own-trajectory-optimal "
@@ -323,68 +171,35 @@ def verify_mismatches():
 
 
 def summary():
-    """Recompute the headline north-star numbers from the COMMITTED artifacts
-    (all five cases): per-case and aggregate exact T*-match, plus the
-    tie-aware exact-or-tied rate under the landscape criterion
-    |J64(T32)-J64(T64)| <= w*(|dT|+1) on the f64 oracle's own final curve
-    (falls back to |J32*-J64*| for old-format artifacts without J_curve).
-    This is the single invocation that README/DESIGN/CLAUDE.md headline
-    numbers must reproduce from."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")  # analysis only — no TPU claim
-    import jax.numpy as jnp
-
-    from timeopt_tpu.models import get_system
-
-    cases = [
-        "DoubleIntegrator",
-        "Cartpole_SwingUp",
-        "Ballbot_Balance",
-        "Segway_Balance",
-        "Quadrotor",
-    ]
+    """Per-case and aggregate exact / exact-or-tied counts over every case
+    that has both an oracle and a candidate file."""
     tot_e = tot_t = tot_n = 0
-    print(f"{'case':20s} {'exact':>11s} {'exact-or-tied':>14s}  criterion")
-    for case in cases:
-        sfx = "" if case == "Quadrotor" else f"_{case}"
-        a = np.load(os.path.join(OUT, f"oracle_f64{sfx}.npz"))
-        b = np.load(os.path.join(OUT, _f32_name(sfx)))
-        T64, T32 = a["T"], b["T"]
-        n = len(T64)
-        exact = int((T32 == T64).sum())
-        _, mk = get_system(case)
-        w = float(mk(dtype=jnp.float64).w)
-        dT = np.abs(T32.astype(np.int64) - T64.astype(np.int64))
-        if "J_curve" in a.files:
-            curve64 = a["J_curve"]
-            idx = np.arange(n)
-            dJ = np.abs(curve64[idx, T32 - 1] - curve64[idx, T64 - 1])
-            crit = "landscape"
-        else:
-            dJ = np.abs(b["J"] - a["J"])
-            crit = "final-cost"
-        tied_n = int(((T32 == T64) | (dJ <= w * (dT + 1))).sum())
-        tot_e += exact
-        tot_t += tied_n
+    print(f"{'case':22s} {'exact':>11s} {'exact-or-tied':>14s}")
+    for case in CASES:
+        if not os.path.exists(os.path.join(OUT, f"oracle_candidate{suffix(case)}.npz")):
+            continue
+        _, _, sc = _score(case)
+        n = sc["n"]
+        tot_e += sc["n_exact"]
+        tot_t += sc["n_exact_or_tied"]
         tot_n += n
-        print(
-            f"{case:20s} {exact:4d}/{n} {exact/n:.3f} {tied_n:4d}/{n} {tied_n/n:.3f}"
-            f"   {crit}"
-        )
-    print(
-        f"{'AGGREGATE':20s} {tot_e:4d}/{tot_n} {tot_e/tot_n:.3f} "
-        f"{tot_t:4d}/{tot_n} {tot_t/tot_n:.3f}"
-    )
+        print(f"{case:22s} {sc['n_exact']:4d}/{n:<6d} {sc['n_exact_or_tied']:4d}/{n}")
+    if tot_n:
+        print(f"{'AGGREGATE':22s} {tot_e:4d}/{tot_n:<6d} {tot_t:4d}/{tot_n}")
 
 
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else "report"
-    if mode in ("cpu", "tpu"):
+    if mode in ("oracle", "candidate"):
         run(mode)
+    elif mode == "picks":
+        for case in CASES:
+            run(mode, case)
     elif mode == "verify":
         verify_mismatches()
     elif mode == "summary":
         summary()
-    else:
+    elif mode == "report":
         report()
+    else:
+        raise SystemExit(f"unknown mode {mode!r}")

@@ -1,19 +1,19 @@
-"""PointMass_Navigation curve-method parity proof (VERDICT round-2 item 4).
+"""PointMass_Navigation curve-method parity proof.
 
 The repo's curve methods (ourmethod/baseline1) score success 0.16 on the
 25-trial PointMass obstacle case (results/cpu_f64_25) while baseline2
 scores 1.0. docs/DESIGN.md argues this is inherent basin-sensitivity of
 quadratic-model horizon selection on the non-convex obstacle landscape —
 the reference itself comments the case out of its default registry
-(/root/reference/run_suite.py:43). This script EXECUTES the reference
-implementation (pure NumPy, imported from /root/reference — executed for
-cross-checking, not copied) on the repo's exact 25-trial set and records
+(reference run_suite.py:43). This script EXECUTES the reference
+implementation (pure NumPy, imported from the directory given as its
+argument — executed for cross-checking, not copied) on the repo's exact 25-trial set and records
 the same row schema, so the two implementations' failure patterns can be
 compared side by side.
 
 Output: results/cpu_f64_25/PointMass_Navigation/reference_curve_methods.csv
 
-Usage: PYTHONPATH=/root/repo python scripts/pointmass_ref_parity.py
+Usage: python scripts/pointmass_ref_parity.py <reference-source-dir>
 """
 
 import os as _os, sys as _sys
@@ -29,7 +29,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")  # trial-set replication only
 
-sys.path.insert(0, "/root/reference")
+if len(sys.argv) != 2:
+    raise SystemExit("usage: python scripts/pointmass_ref_parity.py <reference-source-dir>")
+sys.path.insert(0, sys.argv[1])
 
 import solver as ref_solver  # noqa: E402
 import systems as ref_systems  # noqa: E402
@@ -44,8 +46,8 @@ TOL = 0.5
 def repo_trials():
     """The repo suite's exact trial set (runner/run_suite.build_trial_problems
     with seed 0): trial 0 nominal, others x0 + sigma*N(0,1)."""
-    from timeopt_tpu.runner.run_suite import _case_rng
-    from timeopt_tpu.models import get_system
+    from timeopt.runner.run_suite import _case_rng
+    from timeopt.models import get_system
 
     system, mk = get_system("PointMass_Navigation")
     base = mk()
@@ -65,7 +67,7 @@ def main():
         ref_systems.make_pointmass_navigation()
     )
     # the reference packs the obstacle-cost hook inside the `extra` dict
-    # (/root/reference/run_suite.py:103)
+    # (reference run_suite.py:103)
     extra = extra.get("extra_stage_cost") if isinstance(extra, dict) else None
     x0s, xgs = repo_trials()
     solvers = {
@@ -86,7 +88,7 @@ def main():
                 dt = time.perf_counter() - t0
                 T_star = int(out["T_star"])
                 # the reference runner reads J* from J_hist
-                # (/root/reference/run_suite.py:161)
+                # (reference run_suite.py:161)
                 J_star = float(out["J_hist"][-1]) if out.get("J_hist") else float("inf")
                 eT = out["X"][T_star] - xgs[trial]
                 ferr = float(np.linalg.norm(eT))

@@ -1,8 +1,8 @@
-"""Sensitivity sweep of the one-pass fixed-point preimage budget
-(VERDICT round-3 item 5): run baseline2 over the full 25-trial suite trial
+"""Sensitivity sweep of the one-pass fixed-point preimage budget:
+run baseline2 over the full 25-trial suite trial
 matrix (CPU f64, the reference's config) with preimage n_iter = 4 (this
 repo's outcome-parity default) vs 6 (the reference's literal constant,
-/root/reference/linearization.py:41-71), and report per-trial T*/J/success
+reference linearization.py:41-71), and report per-trial T*/J/success
 deltas so the constant is defended across the whole matrix rather than by
 the single cartpole knife-edge trial.
 
@@ -21,9 +21,9 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 
-from timeopt_tpu.runner.run_suite import CASES, EXTRA_CASES, build_trial_problems  # noqa: E402
-from timeopt_tpu.solver.ilqr import SolveOptions, solve_batch  # noqa: E402
-from timeopt_tpu.ops.wrap import wrap_error  # noqa: E402
+from timeopt.runner.run_suite import CASES, EXTRA_CASES, build_trial_problems  # noqa: E402
+from timeopt.solver.ilqr import SolveOptions, solve_batch  # noqa: E402
+from timeopt.ops.wrap import wrap_error  # noqa: E402
 
 TRIALS = int(_os.environ.get("TRIALS", "25"))
 TOL = 0.5

@@ -7,8 +7,8 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from timeopt_tpu.models import get_system
-from timeopt_tpu.models.base import make_problem
+from timeopt.models import get_system
+from timeopt.models.base import make_problem
 
 
 def tiny_double_integrator(N: int = 24, T_min: int = 4, T_max: int = 16):

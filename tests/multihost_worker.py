@@ -8,8 +8,9 @@ Each process gets 2 virtual CPU devices (4 global), initializes the
 multi-process runtime against a local coordinator, solves its slice of a
 global double-integrator batch through parallel/distributed.py, and
 all-gathers the results; process 0 writes them to <out>.npz. This is the
-same code path a real pod-slice launch takes (SURVEY.md §5 "Distributed
-communication backend") with DCN replaced by localhost gRPC.
+same code path a real multi-process launch takes (SURVEY.md §5
+"Distributed communication backend") with the network replaced by
+localhost gRPC.
 """
 
 import os
@@ -36,26 +37,26 @@ def main():
     pid, nproc, port, out = (
         int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     )
-    # must run BEFORE any import that touches the XLA backend (timeopt_tpu
+    # must run BEFORE any import that touches the XLA backend (timeopt
     # modules build jnp constants at import time)
     jax.distributed.initialize(
         coordinator_address=f"localhost:{port}", num_processes=nproc, process_id=pid
     )
-    from timeopt_tpu.parallel import distributed as dist
+    from timeopt.parallel import distributed as dist
     assert jax.process_count() == nproc, jax.process_count()
     assert jax.local_device_count() == 2, jax.local_device_count()
     assert jax.device_count() == 2 * nproc, jax.device_count()
 
     from tests.helpers import tiny_double_integrator
-    from timeopt_tpu.solver.ilqr import SolveOptions, broadcast_problem
+    from timeopt.solver.ilqr import SolveOptions, broadcast_problem
 
     mode = sys.argv[5] if len(sys.argv) > 5 else ""
     if mode == "quad":
-        # suite-shape check (VERDICT round-3 item 4): the REAL quadrotor
+        # suite-shape check: the REAL quadrotor
         # problem (N=160, T in [40,160], f64) at the full suite budget
         # max_iter=12 — the accept/reject/early-exit trajectory the 25-trial
         # suite takes, not a tiny-shape proxy
-        from timeopt_tpu.models import get_system
+        from timeopt.models import get_system
 
         system, mk = get_system("Quadrotor")
         prob = mk(dtype=jnp.float64)
@@ -89,7 +90,7 @@ def main():
     if mode == "suite":
         import glob
 
-        from timeopt_tpu.runner.run_suite import main as suite_main
+        from timeopt.runner.run_suite import main as suite_main
 
         outdir = out + "_suite"
         suite_main(

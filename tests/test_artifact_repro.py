@@ -5,13 +5,10 @@ This pins the stability contract of CLAUDE.md invariant 5 in CI: any change
 to solver semantics (routing, masking, accept rules, numerics) that would
 invalidate the committed `results/cpu_f64_25` artifact family fails here
 instead of in a docstring. The CPU f64 path is the authority the committed
-artifacts were generated from (round 3, regenerated at HEAD c807510); the
-TPU lanes-kernel side of the contract is covered by the routing-predicate
-tests (test_core.test_dense_routing_gates / test_select_forward_routing_gate)
-plus the hardware battery (scripts/hw_validate.py).
+artifacts were generated from (regenerated at c807510).
 
 Reference anchor for the suite semantics being reproduced:
-/root/reference/run_suite.py:169-175 (success criterion + CSV schema).
+reference run_suite.py:169-175 (success criterion + CSV schema).
 """
 
 import csv
@@ -43,8 +40,8 @@ def test_doubleintegrator_trial_rows_reproduce_bitwise():
     max_iter=12, S_window=20, AD linearization, f64) and require BITWISE
     equality of T*/J* with the committed rows — float(J) round-trips
     exactly through the CSV's repr-precision formatting."""
-    from timeopt_tpu.runner.run_suite import build_trial_problems
-    from timeopt_tpu.solver.ilqr import SolveOptions, solve_batch
+    from timeopt.runner.run_suite import build_trial_problems
+    from timeopt.solver.ilqr import SolveOptions, solve_batch
 
     committed = _committed_rows("DoubleIntegrator", "ourmethod")
     assert len(committed) == 25
@@ -71,8 +68,8 @@ def test_doubleintegrator_trial_rows_reproduce_bitwise():
 def test_baseline2_trial0_reproduces_bitwise():
     """Same pin for the one-pass baseline (the other committed solver family
     with nontrivial selection logic), single case trial set."""
-    from timeopt_tpu.runner.run_suite import build_trial_problems
-    from timeopt_tpu.solver.ilqr import SolveOptions, solve_batch
+    from timeopt.runner.run_suite import build_trial_problems
+    from timeopt.solver.ilqr import SolveOptions, solve_batch
 
     committed = _committed_rows("DoubleIntegrator", "baseline2")
     assert len(committed) == 25

@@ -1,22 +1,21 @@
 """df32 lanes brute-force oracle (solver/bruteforce_df.py): a batched f32
 brute-force J(T) curve must reproduce the f64 curve (and its argmin) far
 beyond plain-f32 accuracy. Runs in plain XLA on CPU; compiled-CPU df32 is
-degraded by LLVM FP contraction (see ops/df32.py), so tolerances are loose —
-TPU hardware is the authority."""
+degraded by LLVM FP contraction (see ops/df32.py), so tolerances are loose."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.solver.bruteforce_df import bruteforce_lanes_df
-from timeopt_tpu.solver.backward import stage_expansion
-from timeopt_tpu.solver.cost import rollout
-from timeopt_tpu.solver.horizon import bruteforce_J_curve
-from timeopt_tpu.solver.ilqr import default_U_init
-from timeopt_tpu.solver.linearize import linearize
-from timeopt_tpu.ops.linalg import sym
-from timeopt_tpu.ops.wrap import wrap_error
+from timeopt.solver.bruteforce_df import bruteforce_lanes_df
+from timeopt.solver.backward import stage_expansion
+from timeopt.solver.cost import rollout
+from timeopt.solver.horizon import bruteforce_J_curve
+from timeopt.solver.ilqr import default_U_init
+from timeopt.solver.linearize import linearize
+from timeopt.ops.linalg import sym
+from timeopt.ops.wrap import wrap_error
 
 
 def _bf_inputs(system, prob0, dtype, du):

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.solver.backward import backward_truncated
-from timeopt_tpu.solver.cost import argmin_T, cost_true, nominal_cost_curve, rollout
-from timeopt_tpu.solver.forward import forward_linesearch
-from timeopt_tpu.solver.ilqr import default_U_init
-from timeopt_tpu.solver.linearize import linearize, linearize_ad, linearize_fd
+from timeopt.solver.backward import backward_truncated
+from timeopt.solver.cost import argmin_T, cost_true, nominal_cost_curve, rollout
+from timeopt.solver.forward import forward_linesearch
+from timeopt.solver.ilqr import default_U_init
+from timeopt.solver.linearize import linearize, linearize_ad, linearize_fd
 
 
 def _setup():
@@ -109,47 +109,3 @@ def test_backward_not_ok_on_nan_traj():
     Xbad = X.at[5].set(jnp.nan)
     bw = backward_truncated(system, prob, A, B, Xbad, U, jnp.int32(10), jnp.float64(1e-3))
     assert not bool(bw.ok)
-
-
-def test_dense_routing_gates():
-    """Measured routing thresholds (DESIGN §4): the backward cost-model
-    gate avoids padding-heavy regressions; select/forward use B > 512."""
-    from timeopt_tpu.solver.backward import use_dense_backward
-
-    assert use_dense_backward(1024, 12)
-    assert use_dense_backward(2048, 12)
-    assert use_dense_backward(8192, 4)
-    assert not use_dense_backward(640, 12)   # pad-heavy: lanes wins
-    assert not use_dense_backward(512, 12)
-    assert not use_dense_backward(1024, 2)   # n=2 floor (DoubleIntegrator)
-    assert use_dense_backward(896, 12)       # 7*1 <= 7: measured breakeven
-
-
-def test_select_forward_routing_gate():
-    """The select/forward dense-routing predicate (solver/horizon.py) — and
-    with it CLAUDE.md invariant 5: every committed-artifact batch shape
-    (suite B=25, oracle B=128, batch-of-1 latency) MUST stay on the
-    bitwise-stable lanes path; serving batches > 512 route dense."""
-    from timeopt_tpu.solver.backward import use_dense_backward
-    from timeopt_tpu.solver.horizon import use_dense_select
-
-    # committed-artifact shapes: lanes on ALL THREE kernel families
-    for b in (1, 25, 128):
-        assert not use_dense_select(b)
-        assert not use_dense_backward(b, 13)
-    # serving shapes: dense select/forward
-    assert not use_dense_select(512)
-    assert use_dense_select(513)
-    assert use_dense_select(1024)
-    assert use_dense_select(4096)
-
-
-def test_latency_trisym_gate():
-    """The batch-of-1 latency routing (round 5: trisym on the lanes tile,
-    57.7 -> 44.8 ms/solve) fires ONLY at B == 1 — committed suite (25) and
-    oracle (128) shapes stay on the frozen trisym=False lanes contract."""
-    from timeopt_tpu.solver.horizon import use_latency_trisym
-
-    assert use_latency_trisym(1)
-    for b in (2, 25, 128, 512, 1024):
-        assert not use_latency_trisym(b)

@@ -1,13 +1,13 @@
 """Direct unit tests for the df32 extended-precision primitives
-(timeopt_tpu/ops/df32.py) against float64 references. Run as plain XLA ops on
+(timeopt/ops/df32.py) against float64 references. Run as plain XLA ops on
 CPU, where f32 arithmetic is IEEE-exact, so the error bounds are the real
-df32 bounds (~4e-15 relative) — unlike Pallas interpret mode, which degrades
-the TwoSum/TwoProd tricks."""
+df32 bounds (~4e-15 relative) — unlike compiled XLA-CPU code, whose FP
+contraction degrades the TwoSum/TwoProd tricks."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from timeopt_tpu.ops import df32 as dfm
+from timeopt.ops import df32 as dfm
 
 P, B = 13, 8
 

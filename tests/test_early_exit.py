@@ -1,14 +1,14 @@
 """Early-exit while_loop parity: per-problem results must be bit-identical
 to the fixed max_iter scan (the loop transform only changes when the batch
 STOPS, never what a lane computes — reference convergence break:
-/root/reference/solver.py:745-753)."""
+reference solver.py:745-753)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from timeopt_tpu.models import get_system
-from timeopt_tpu.solver.ilqr import SolveOptions, broadcast_problem, solve, solve_batch
+from timeopt.models import get_system
+from timeopt.solver.ilqr import SolveOptions, broadcast_problem, solve, solve_batch
 from tests.helpers import tiny_double_integrator
 
 

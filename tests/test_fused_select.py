@@ -1,18 +1,16 @@
-"""Fused-assembly select path (in-kernel augmented-block assembly) vs the
-assembled XLA path."""
+"""Fused-input select route (the default: augmented blocks assembled from
+(n,)-sized inputs) vs the assembled XLA route."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import random_ltv_problem
-from timeopt_tpu.models.base import System
-from timeopt_tpu.ops.pallas_lft import propagator_select_lanes_df_fused
-from timeopt_tpu.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
-from timeopt_tpu.solver.horizon import (
-    _assemble_from_fused,
-    _select_impl,
-    propagator_select_fused_cv,
+from timeopt.models.base import System
+from timeopt.solver.augmented import build_augmented, build_fused_inputs, build_terminal_factors
+from timeopt.solver.horizon import (
+    propagator_select_fused,
+    propagator_select_single_jitter,
 )
 
 
@@ -36,11 +34,11 @@ def test_fused_fallback_matches_assembled_f64(rng):
     for system, prob, A, Bm, X, U in _problems(rng, B=4):
         blocks = build_augmented(system, prob, X, U, A, Bm, psd_levels=1)
         C = build_terminal_factors(prob, X, s=blocks.s)
-        J_ref = blocks.s[0] ** 2 * _select_impl(
+        J_ref = blocks.s[0] ** 2 * propagator_select_single_jitter(
             blocks.A_aug, blocks.B_aug, blocks.Q_aug, blocks.R_inv, C
         )
         fi = build_fused_inputs(system, prob, X, U, A, Bm, psd_levels=1)
-        J_fused = fi.s[0] ** 2 * propagator_select_fused_cv(
+        J_fused = fi.s[0] ** 2 * propagator_select_fused(
             fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt
         )
         np.testing.assert_allclose(
@@ -48,125 +46,33 @@ def test_fused_fallback_matches_assembled_f64(rng):
         )
 
 
-def test_fused_kernel_interpret_matches_f64(rng):
-    """The fused Pallas kernel (interpret, f32 inputs) tracks the f64 XLA
-    reference (loose: interpret mode degrades the df32 tricks)."""
-    probs = _problems(rng, B=8, dtype=np.float64)
-    refs, f32in = [], []
-    for system, prob, A, Bm, X, U in probs:
-        fi = build_fused_inputs(system, prob, X, U, A, Bm, psd_levels=1)
-        A_aug, B_aug, Q_aug, C = _assemble_from_fused(
-            fi.A, fi.B, fi.vecs, fi.scal, fi.Qq, fi.R_inv, fi.Lt
-        )
-        refs.append(fi.s[0] ** 2 * _select_impl(A_aug, B_aug, Q_aug, fi.R_inv, C))
-        f32in.append(jax.tree.map(lambda x: x.astype(jnp.float32), fi))
-    J_ref = np.asarray(jnp.stack(refs), np.float64)
-
-    stack = lambda get: jnp.stack([get(fi) for fi in f32in])  # noqa: E731
-    J32 = propagator_select_lanes_df_fused(
-        stack(lambda f: f.A), stack(lambda f: f.B), stack(lambda f: f.vecs),
-        stack(lambda f: f.scal), stack(lambda f: f.Qq), stack(lambda f: f.R_inv),
-        stack(lambda f: f.Lt), block_b=8, interpret=True,
-    )
-    s0sq = np.asarray(stack(lambda f: f.s))[:, 0] ** 2
-    J32 = np.asarray(J32, np.float64) * s0sq[:, None]
-    np.testing.assert_allclose(J32, J_ref, rtol=2e-3, atol=1e-4)
-
-
-def test_dense_kernel_interpret_matches_lanes(rng):
-    """The dense-tile kernel (batch in full (sublane, lane) tiles, matrix
-    indices on untiled leading axes) runs the identical per-element df op
-    sequence as the lanes kernel. On TPU hardware the outputs are BITWISE
-    equal (verified at B=1024 by scripts/select_dense_probe.py); under
-    compiled-CPU interpret mode LLVM FP contraction degrades the df32
-    tricks shape-dependently (ops/df32.py backend caveat), so this CPU
-    check uses a loose tolerance."""
-    from timeopt_tpu.ops.pallas_lft import propagator_select_dense_df_fused
-
-    probs = _problems(rng, B=8, dtype=np.float64)
-    f32in = []
-    for system, prob, A, Bm, X, U in probs:
-        fi = build_fused_inputs(system, prob, X, U, A, Bm, psd_levels=1)
-        f32in.append(jax.tree.map(lambda x: x.astype(jnp.float32), fi))
-    stack = lambda get: jnp.stack([get(fi) for fi in f32in])  # noqa: E731
-    args = (
-        stack(lambda f: f.A), stack(lambda f: f.B), stack(lambda f: f.vecs),
-        stack(lambda f: f.scal), stack(lambda f: f.Qq), stack(lambda f: f.R_inv),
-        stack(lambda f: f.Lt),
-    )
-    J_lanes = propagator_select_lanes_df_fused(*args, block_b=8, interpret=True)
-    J_dense = propagator_select_dense_df_fused(*args, tile=(2, 4), interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(J_dense), np.asarray(J_lanes), rtol=1e-3, atol=1e-3
-    )
-
-
 def test_fused_path_e2e_quadrotor(rng):
-    """Default solve (fused cv fallback on CPU) == explicit non-pallas solve."""
-    from timeopt_tpu.models import quadrotor
-    from timeopt_tpu.solver.ilqr import SolveOptions, solve
+    """The default route's J(T) curve on a solved quadrotor trajectory ==
+    the assembled propagator_select route (build_augmented +
+    build_terminal_factors + the psd_levels=2 sequential scan)."""
+    from timeopt.models import quadrotor
+    from timeopt.solver.cost import argmin_T
+    from timeopt.solver.horizon import propagator_select
+    from timeopt.solver.ilqr import SolveOptions, _select_curve, resolve_q_reg, solve
+    from timeopt.solver.linearize import linearize
 
+    system = quadrotor.SYSTEM
     prob = quadrotor.default_problem(dtype=jnp.float64)
-    r_fused = solve(quadrotor.SYSTEM, prob, options=SolveOptions(max_iter=6, use_pallas=True))
-    r_plain = solve(quadrotor.SYSTEM, prob, options=SolveOptions(max_iter=6, use_pallas=False))
-    assert int(r_fused.T_star) == int(r_plain.T_star)
+    opts = SolveOptions(max_iter=6)
+    res = solve(system, prob, options=opts)
+    X, U = res.X, res.U
+    A, B = linearize(system.step, X, U, "ad")
+    J_default = _select_curve(system, prob, opts, X, U, A, B)
+
+    blocks = build_augmented(
+        system, prob, X, U, A, B, q_reg=resolve_q_reg(opts, X.dtype),
+        rho_reg=opts.rho_reg, psd_levels=opts.psd_levels,
+    )
+    C = build_terminal_factors(prob, X, rho_reg=opts.rho_reg, s=blocks.s)
+    J_assembled = blocks.s[0] ** 2 * propagator_select(blocks, C, psd_levels=opts.psd_levels)
+
+    lo, hi = prob.T_min, prob.T_max
+    assert int(argmin_T(J_default, lo, hi)) == int(argmin_T(J_assembled, lo, hi)) == int(res.T_star)
     np.testing.assert_allclose(
-        float(r_fused.J_star), float(r_plain.J_star), rtol=1e-8
+        np.asarray(J_default)[lo - 1 : hi], np.asarray(J_assembled)[lo - 1 : hi], rtol=1e-8
     )
-
-
-def test_mixedprec_knobs_interpret(rng):
-    """Bitrot guard for the round-5 mixed-precision knobs (query_df=False /
-    element_df=False — probe-only, NOT routed by default): both compile in
-    interpret mode and track the df32 curve loosely (the f32 query perturbs
-    J ~ kappa*eps_f32; interpret-mode df degradation adds on top)."""
-    from timeopt_tpu.ops.pallas_lft import propagator_select_dense_df_fused
-
-    probs = _problems(rng, B=8, dtype=np.float64)
-    f32in = []
-    for system, prob, A, Bm, X, U in probs:
-        fi = build_fused_inputs(system, prob, X, U, A, Bm, psd_levels=1)
-        f32in.append(jax.tree.map(lambda x: x.astype(jnp.float32), fi))
-    stack = lambda get: jnp.stack([get(fi) for fi in f32in])  # noqa: E731
-    args = (
-        stack(lambda f: f.A), stack(lambda f: f.B), stack(lambda f: f.vecs),
-        stack(lambda f: f.scal), stack(lambda f: f.Qq), stack(lambda f: f.R_inv),
-        stack(lambda f: f.Lt),
-    )
-    J_df = np.asarray(propagator_select_lanes_df_fused(*args, block_b=8, interpret=True))
-    for kw in ({"query_df": False}, {"element_df": False}):
-        J_mp = np.asarray(
-            propagator_select_dense_df_fused(
-                *args, tile=(2, 4), trisym=True, interpret=True, **kw
-            )
-        )
-        assert np.isfinite(J_mp).all() == np.isfinite(J_df).all()
-        np.testing.assert_allclose(J_mp, J_df, rtol=2e-2, atol=2e-2)
-
-
-def test_lanes_trisym_interpret_tracks_df(rng):
-    """Bitrot guard for the batch-of-1 latency routing's kernel config
-    (lanes fused select, trisym=True — use_latency_trisym): compiles in
-    interpret mode and tracks the trisym=False curve loosely (hardware
-    agreement is f32-ulp, oracle-validated 637/640; interpret-mode CPU
-    degrades df32, hence the loose tolerance)."""
-    probs = _problems(rng, B=8, dtype=np.float64)
-    f32in = []
-    for system, prob, A, Bm, X, U in probs:
-        fi = build_fused_inputs(system, prob, X, U, A, Bm, psd_levels=1)
-        f32in.append(jax.tree.map(lambda x: x.astype(jnp.float32), fi))
-    stack = lambda get: jnp.stack([get(fi) for fi in f32in])  # noqa: E731
-    args = (
-        stack(lambda f: f.A), stack(lambda f: f.B), stack(lambda f: f.vecs),
-        stack(lambda f: f.scal), stack(lambda f: f.Qq), stack(lambda f: f.R_inv),
-        stack(lambda f: f.Lt),
-    )
-    J_plain = np.asarray(
-        propagator_select_lanes_df_fused(*args, block_b=8, interpret=True)
-    )
-    J_tri = np.asarray(
-        propagator_select_lanes_df_fused(
-            *args, block_b=8, trisym=True, interpret=True
-        )
-    )
-    np.testing.assert_allclose(J_tri, J_plain, rtol=1e-3, atol=1e-3)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from timeopt_tpu.ops.linalg import (
+from timeopt.ops.linalg import (
     as_terminal_weight,
     gj_inv,
     gj_inv_pivots,
@@ -14,7 +14,7 @@ from timeopt_tpu.ops.linalg import (
     spd_check,
     sym,
 )
-from timeopt_tpu.ops.wrap import angle_normalize, wrap_error, wrap_mask_from_idx
+from timeopt.ops.wrap import angle_normalize, wrap_error, wrap_mask_from_idx
 
 
 def _rand_spd(rng, b, n, scale=1.0):

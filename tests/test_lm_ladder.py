@@ -1,5 +1,5 @@
 """One-pass LM-ladder parity vs the reference's per-step escalation
-(/root/reference/horizon_selection.py:179-200: try chol(Quu + lam I), lam x10
+(reference horizon_selection.py:179-200: try chol(Quu + lam I), lam x10
 on failure, up to 12 tries => ceiling lam*1e11).
 
 The jittable re-design uses a static 4-rung ladder {lam, lam*1e4, lam*1e8,
@@ -17,7 +17,7 @@ near-singular / indefinite Quu spanning 24 decades of negative curvature:
 import numpy as np
 import jax.numpy as jnp
 
-from timeopt_tpu.ops.linalg import spd_check
+from timeopt.ops.linalg import spd_check
 
 
 def _reference_escalation(Quu, lam0, tries=12):

@@ -1,11 +1,13 @@
 """Model sanity tests: equilibria, guard semantics, shapes, registry."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from timeopt_tpu.models import SYSTEMS, get_system
+from timeopt.models import SYSTEMS, get_system
 
 
 def test_registry_complete():
@@ -90,8 +92,8 @@ def test_cartpole_down_fixed_point():
 
 def test_pointmass_obstacle_cost_ad_matches_analytic():
     """AD gradient/Hessian of the obstacle penalty match the closed form
-    the reference hand-derives (/root/reference/systems.py:271-293)."""
-    from timeopt_tpu.models.pointmass import OBSTACLES, obstacle_cost
+    the reference hand-derives (reference systems.py:271-293)."""
+    from timeopt.models.pointmass import OBSTACLES, obstacle_cost
 
     x = jnp.asarray([-0.5, -0.3, 0.1, 0.2])
     u = jnp.zeros(2)
@@ -116,3 +118,29 @@ def test_safe_step_norm_guard():
     system, _ = get_system("DoubleIntegrator")
     x = jnp.asarray([1e7, 0.0])
     assert bool(jnp.all(jnp.isnan(system.safe_step(x, jnp.zeros(1)))))
+
+
+def test_model_constants_do_not_depend_on_import_order():
+    """Importing the package before x64 is enabled must not round the model
+    constants to f32: an f64 solve then reads the same obstacle and inertia
+    values as one whose process enabled x64 first."""
+    import subprocess
+    import sys
+
+    code = (
+        "import jax, numpy as np\n"
+        "from timeopt.models import pointmass, quadrotor\n"
+        "jax.config.update('jax_enable_x64', True)\n"
+        "x = jax.numpy.asarray([-0.7, -0.2, 0.0, 0.0], jax.numpy.float64)\n"
+        "print(repr(float(pointmass.obstacle_cost(x, None))), repr(float(quadrotor._INERTIA[0])))\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="0")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ).stdout.split()
+    from timeopt.models import pointmass
+
+    x = jnp.asarray([-0.7, -0.2, 0.0, 0.0], jnp.float64)
+    assert float(out[0]) == float(pointmass.obstacle_cost(x, None))
+    assert float(out[1]) == 0.02

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.solver.cost import rollout
-from timeopt_tpu.solver.ilqr import SolveOptions, default_U_init, solve
-from timeopt_tpu.solver.linearize import linearize
-from timeopt_tpu.solver.onepass import (
+from timeopt.solver.cost import rollout
+from timeopt.solver.ilqr import SolveOptions, default_U_init, solve
+from timeopt.solver.linearize import linearize
+from timeopt.solver.onepass import (
     extend_nominal_backward,
     fixedpoint_preimage_step,
     onepass_pick,
@@ -48,7 +48,7 @@ def test_value_sweep_matches_bruteforce_V0():
     """V0 at i = T̄ - T + S from the single sweep equals the brute-force
     value expansion J(T̄) when queried at the nominal start (T = T̄ ⇒ dx0=0,
     prefix unused)."""
-    from timeopt_tpu.solver.horizon import value_expansion_V0
+    from timeopt.solver.horizon import value_expansion_V0
 
     system, prob = tiny_double_integrator()
     U = default_U_init(prob) + 0.05

@@ -1,25 +1,26 @@
-"""Guard for CLAUDE.md invariant 1b: every dot_general traced on the f32
+"""Guard for CLAUDE.md invariant 2: every dot_general traced on the f32
 solve path must carry HIGHEST (full-f32) precision.
 
-XLA-TPU lowers f32 dots at DEFAULT precision through the MXU with bfloat16
-inputs (~2e-3 rel) — the root cause of the round-2 iterate-0 selection
-anomaly (docs/DESIGN.md §3.4). The effect is TPU-only, so CPU tests cannot
-observe the numerics; instead this test inspects the traced jaxprs of the
-solve path and of every phase entry point and asserts no DEFAULT-precision
-dot survives (i.e. ops/precision.full_matmul_precision stays applied —
+At DEFAULT precision XLA may lower f32 dots to reduced-precision matrix
+units (TF32 on an NVIDIA GPU, ~1e-3 rel), the noise class of the iterate-0
+selection anomaly (docs/DESIGN.md §3.4). CPU tests cannot observe those
+numerics; instead this test inspects the traced jaxprs of the solve path
+and of every phase entry point and asserts no DEFAULT-precision dot
+survives (i.e. ops/precision.full_matmul_precision stays applied —
 including to AD-generated dots inside linearize).
 """
 
 import jax
+import jax.extend.core  # noqa: F401  (jaxpr types used below)
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from timeopt_tpu.models import get_system
-from timeopt_tpu.solver.backward import backward_truncated
-from timeopt_tpu.solver.cost import cost_true
-from timeopt_tpu.solver.forward import forward_linesearch
-from timeopt_tpu.solver.ilqr import SolveOptions, _solve_traced, default_U_init
+from timeopt.models import get_system
+from timeopt.solver.backward import backward_truncated
+from timeopt.solver.cost import cost_true
+from timeopt.solver.forward import forward_linesearch
+from timeopt.solver.ilqr import SolveOptions, _solve_traced, default_U_init
 
 
 def _collect_dot_precisions(jaxpr, out):
@@ -47,7 +48,7 @@ def _assert_all_highest(fn, *args):
     bad = [p for p in precs if p != (lax.Precision.HIGHEST, lax.Precision.HIGHEST)]
     assert not bad, (
         f"{len(bad)}/{len(precs)} dots traced at non-HIGHEST precision "
-        f"(bf16 MXU lowering on TPU — invariant 1b): {set(map(str, bad))}"
+        f"(reduced-precision matmul units — invariant 2): {set(map(str, bad))}"
     )
 
 

@@ -17,13 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import random_ltv_problem, riccati_J_curve_oracle
-from timeopt_tpu.models.base import System
-from timeopt_tpu.solver.augmented import (
+from timeopt.models.base import System
+from timeopt.solver.augmented import (
     build_augmented,
     build_terminal_blocks,
     build_terminal_factors,
 )
-from timeopt_tpu.solver.horizon import (
+from timeopt.solver.horizon import (
     bruteforce_J_curve,
     lft_elements,
     lft_prefix_scan,
@@ -103,7 +103,7 @@ def test_associative_scan_matches_sequential(rng):
 def test_lft_compose_is_associative(rng):
     """(a∘b)∘c == a∘(b∘c) on random PD elements — the property that makes
     associative_scan legal."""
-    from timeopt_tpu.solver.horizon import LFTElements, lft_compose
+    from timeopt.solver.horizon import LFTElements, lft_compose
 
     def rand_elem(key_seed):
         r = np.random.default_rng(key_seed)
@@ -125,8 +125,8 @@ def test_consistency_check_utility():
     """User-facing consistency metric (reference consistency_max_abs/rmse):
     near-zero for the factored propagator on a solved trajectory."""
     from tests.helpers import tiny_double_integrator
-    from timeopt_tpu.solver.ilqr import SolveOptions, solve
-    from timeopt_tpu.solver.verify import consistency_check
+    from timeopt.solver.ilqr import SolveOptions, solve
+    from timeopt.solver.verify import consistency_check
 
     system, prob = tiny_double_integrator()
     res = solve(system, prob, options=SolveOptions(method="propagator", max_iter=6))

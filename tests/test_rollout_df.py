@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from timeopt_tpu.models import cartpole, double_integrator, quadrotor
-from timeopt_tpu.solver.cost import rollout
-from timeopt_tpu.solver.ilqr import SolveOptions, default_U_init, solve
-from timeopt_tpu.solver.rollout_df import rollout_df, supports_df
+from timeopt.models import cartpole, double_integrator, quadrotor
+from timeopt.solver.cost import rollout
+from timeopt.solver.ilqr import SolveOptions, default_U_init, solve
+from timeopt.solver.rollout_df import rollout_df, supports_df
 
 
 def test_step_consistency_with_xdot():
     """step(x,u) == wrap(x + dt*xdot(x,u)) for every system exposing xdot."""
-    from timeopt_tpu.models import SYSTEMS, get_system
+    from timeopt.models import SYSTEMS, get_system
 
     for name in SYSTEMS:
         system, mk = get_system(name)
@@ -60,7 +60,7 @@ def test_df_rollout_cartpole_accuracy():
     (both floored by the f32 rounding of the input controls)."""
     prob64 = cartpole.default_problem(dtype=jnp.float64)
     prob32 = cartpole.default_problem(dtype=jnp.float32)
-    res64 = solve(cartpole.SYSTEM, prob64, options=SolveOptions(max_iter=6, use_pallas=False))
+    res64 = solve(cartpole.SYSTEM, prob64, options=SolveOptions(max_iter=6))
     T = int(res64.T_star)
     U32 = res64.U.astype(jnp.float32)
     # oracle: f64 arithmetic on the f32-cast controls
@@ -111,10 +111,10 @@ def test_cartpole_f32_solve_with_f64_selection():
     """The round-1 'cartpole is an f32 failure' diagnosis decomposed: with an
     f64-quality selection the f32 solve reproduces the f64 horizon sequence
     exactly — forward-pass f32 noise does not flip any accept decision.
-    (This is the CPU stand-in for the df32 Pallas selection kernels.)"""
-    opts64 = SolveOptions(max_iter=12, use_pallas=False)
+    (The f64 selection stands in for an exact df32 selection.)"""
+    opts64 = SolveOptions(max_iter=12)
     res64 = solve(cartpole.SYSTEM, cartpole.default_problem(dtype=jnp.float64), options=opts64)
-    opts32 = SolveOptions(max_iter=12, use_pallas=False, select_dtype="float64")
+    opts32 = SolveOptions(max_iter=12, select_dtype="float64")
     res32 = solve(cartpole.SYSTEM, cartpole.default_problem(dtype=jnp.float32), options=opts32)
     assert int(res32.T_star) == int(res64.T_star) == 181
     assert float(res32.J_star) == pytest.approx(float(res64.J_star), rel=1e-4)
@@ -124,7 +124,7 @@ def test_cartpole_f32_solve_with_f64_selection():
 def test_df_forward_auto_resolution():
     """df_forward='auto' -> on for f32 + xdot, off for f64; 'on' without xdot
     raises."""
-    from timeopt_tpu.solver.ilqr import _df_on
+    from timeopt.solver.ilqr import _df_on
     import dataclasses
 
     assert _df_on(cartpole.SYSTEM, SolveOptions(), jnp.float32)

@@ -1,5 +1,5 @@
 """Benchmark-runner CLI tests: CSV schema parity with the reference
-(/root/reference/run_suite.py outputs) and figure generation."""
+(reference run_suite.py outputs) and figure generation."""
 
 import os
 
@@ -8,8 +8,8 @@ import pytest
 
 pd = pytest.importorskip("pandas")
 
-from timeopt_tpu.runner import plot as plot_mod
-from timeopt_tpu.runner.run_suite import main as suite_main
+from timeopt.runner import plot as plot_mod
+from timeopt.runner.run_suite import main as suite_main
 
 REFERENCE_COLUMNS = [
     "case", "trial", "solver", "status", "T_star", "J_star", "total_time",
@@ -95,7 +95,7 @@ def test_per_solve_timing(tmp_path):
 
 def test_save_jt_curve(tmp_path):
     """--save-jt writes the reference *_Jt.csv artifact schema (t, J_<method>
-    columns; /root/reference/plots/DoubleIntegrator_Jt.csv) with the
+    columns; reference plots/DoubleIntegrator_Jt.csv) with the
     propagator and bruteforce curves agreeing and the argmin at the
     published T*=25; plot_jt renders it."""
     out = tmp_path / "jt"

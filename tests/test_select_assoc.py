@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import random_ltv_problem, tiny_double_integrator
-from timeopt_tpu.models.base import System
-from timeopt_tpu.solver.augmented import build_augmented, build_terminal_factors
-from timeopt_tpu.solver.horizon import propagator_select
-from timeopt_tpu.solver.ilqr import SolveOptions, default_U_init, solve
-from timeopt_tpu.solver.select_assoc import (
+from timeopt.models.base import System
+from timeopt.solver.augmented import build_augmented, build_terminal_factors
+from timeopt.solver.horizon import propagator_select
+from timeopt.solver.ilqr import SolveOptions, default_U_init, solve
+from timeopt.solver.select_assoc import (
     lft_elements_lanes_df,
     lft_prefix_scan_assoc_df,
     propagator_select_assoc_df,
@@ -58,10 +58,8 @@ def test_assoc_df32_matches_f64_at_input_rounding(rng):
     consumer fusion (measured: df_matmul error 2e-14 eager vs 5e-8 jitted
     on CPU; --xla_backend_optimization_level=0 restores exactness). The
     lax.scan in the prefix scan always compiles, so this CPU test can only
-    assert ~1e-4 relative. On TPU there is no LLVM backend and a*b-p is
-    measured unfused with zero residual (docs/DESIGN.md §5), so the df32
-    contract holds there — validated on hardware by scripts/latency_probe.py
-    (assoc T*/J == sequential-kernel T*/J)."""
+    assert ~1e-4 relative. What the GPU compiler makes of it is measured by
+    scripts/phase_times.py (PERF.md)."""
     blocks, C = _setup(rng, N=14)
     J_seq = np.asarray(propagator_select(blocks, C, terminal_mode="factored"))
     c32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
@@ -100,7 +98,7 @@ def test_assoc_vmap_matches_loop(rng):
 def test_assoc_prefix_equals_sequential_composition(rng):
     """Lane k of the Hillis-Steele scan == left fold of elements 0..k (the
     scan's own correctness, independent of the terminal query)."""
-    from timeopt_tpu.ops.lft_df import df_lft_compose
+    from timeopt.ops.lft_df import df_lft_compose
 
     blocks, C = _setup(rng, N=9)
     elems = lft_elements_lanes_df(

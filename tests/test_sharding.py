@@ -7,14 +7,14 @@ import numpy as np
 import pytest
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.parallel.mesh import (
+from timeopt.parallel.mesh import (
     make_mesh,
     propagator_select_sharded,
     shard_problems,
     solve_batch_sharded,
 )
-from timeopt_tpu.parallel.stats import batch_summary, t_star_histogram
-from timeopt_tpu.solver.ilqr import SolveOptions, solve_batch, stack_problems
+from timeopt.parallel.stats import batch_summary, t_star_histogram
+from timeopt.solver.ilqr import SolveOptions, solve_batch, stack_problems
 
 
 pytestmark = pytest.mark.skipif(
@@ -67,11 +67,11 @@ def test_batch_summary_psum():
 
 
 def test_propagator_select_sharded_matches_local():
-    from timeopt_tpu.solver.augmented import build_augmented, build_terminal_factors
-    from timeopt_tpu.solver.cost import rollout
-    from timeopt_tpu.solver.horizon import propagator_select
-    from timeopt_tpu.solver.ilqr import default_U_init
-    from timeopt_tpu.solver.linearize import linearize
+    from timeopt.solver.augmented import build_augmented, build_terminal_factors
+    from timeopt.solver.cost import rollout
+    from timeopt.solver.horizon import propagator_select
+    from timeopt.solver.ilqr import default_U_init
+    from timeopt.solver.linearize import linearize
 
     system, prob = tiny_double_integrator()
     U = default_U_init(prob)

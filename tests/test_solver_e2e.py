@@ -1,8 +1,8 @@
 """End-to-end solver tests.
 
 The headline parity check reproduces the reference's committed artifact:
-DoubleIntegrator T* = 25, J* = 6.5444 (/root/reference/plots/summary.csv:2-4,
-/root/repo/BASELINE.md). N is shortened from 120 to 80 (= T_max): the tail
+DoubleIntegrator T* = 25, J* = 6.5444 (reference plots/summary.csv:2-4,
+BASELINE.md). N is shortened from 120 to 80 (= T_max): the tail
 beyond T_max affects neither selection nor the truncated cost, so results are
 identical while compiles stay fast on the CPU test host.
 """
@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.models import get_system
-from timeopt_tpu.solver.ilqr import SolveOptions, solve, solve_batch, stack_problems
+from timeopt.models import get_system
+from timeopt.solver.ilqr import SolveOptions, solve, solve_batch, stack_problems
 
 
 def test_double_integrator_matches_reference_artifact():
@@ -89,7 +89,7 @@ def test_batched_solve_matches_individual():
 def test_quadrotor_small_prop_equals_bruteforce():
     """Nonlinear 12-DoF quadrotor (reduced horizon for test speed):
     propagator and brute-force agree on T* and J*."""
-    from timeopt_tpu.models.base import make_problem
+    from timeopt.models.base import make_problem
 
     system, _ = get_system("Quadrotor")
     prob = make_problem(
@@ -115,9 +115,9 @@ def test_quadrotor_small_prop_equals_bruteforce():
 def test_pointmass_extra_cost_solve():
     """The extra-stage-cost hook (obstacle penalties) runs end-to-end and the
     solution avoids obstacle centers."""
-    from timeopt_tpu.models.pointmass import OBSTACLES
+    from timeopt.models.pointmass import OBSTACLES
 
-    from timeopt_tpu.models.base import make_problem
+    from timeopt.models.base import make_problem
 
     system, _ = get_system("PointMass_Navigation")
     prob = make_problem(
@@ -149,7 +149,6 @@ def test_option_variants_agree():
     for opts in (
         SolveOptions(method="propagator", max_iter=6, terminal_mode="inverse"),
         SolveOptions(method="propagator", max_iter=6, homogeneous_scaling=False),
-        SolveOptions(method="propagator", max_iter=6, use_pallas=False),
         SolveOptions(method="propagator", max_iter=6, psd_levels=1),
     ):
         r = solve(system, prob, options=opts)

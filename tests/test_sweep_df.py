@@ -1,17 +1,17 @@
 """df32 lanes one-pass sweep (solver/sweep_df.py): a batched f32 sweep must
 reproduce the f64 sweep to far better than plain-f32 accuracy. Runs in plain
-XLA on CPU (no Pallas/interpret caveats — df32 is exact here)."""
+XLA on CPU."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.models import get_system
-from timeopt_tpu.solver.cost import rollout
-from timeopt_tpu.solver.ilqr import default_U_init
-from timeopt_tpu.solver.linearize import linearize
-from timeopt_tpu.solver.onepass import extend_nominal_backward, value_sweep_prefix
+from timeopt.models import get_system
+from timeopt.solver.cost import rollout
+from timeopt.solver.ilqr import default_U_init
+from timeopt.solver.linearize import linearize
+from timeopt.solver.onepass import extend_nominal_backward, value_sweep_prefix
 
 
 def _sweep_inputs(system, prob, S, dtype):

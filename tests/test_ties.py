@@ -1,13 +1,13 @@
 """Flat-tie sets (SolveResult.T_ties): the landscape tie criterion
 |J(t) - J(T*)| <= w * (|t - T*| + 1) surfaced as a first-class solver
 output (the post-hoc criterion of scripts/oracle_match.py computed
-on-chip, so exact-or-tied agreement needs no f64 oracle run)."""
+on the device, so exact-or-tied agreement needs no f64 oracle run)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from timeopt_tpu.models import get_system
-from timeopt_tpu.solver.ilqr import SolveOptions, flat_tie_set, solve
+from timeopt.models import get_system
+from timeopt.solver.ilqr import SolveOptions, flat_tie_set, solve
 
 
 def test_flat_tie_set_synthetic():

@@ -3,8 +3,8 @@
 import numpy as np
 
 from tests.helpers import tiny_double_integrator
-from timeopt_tpu.solver.ilqr import SolveOptions, solve
-from timeopt_tpu.utils.timing import profile_solve
+from timeopt.solver.ilqr import SolveOptions, solve
+from timeopt.utils.timing import profile_solve
 
 
 def test_profile_solve_timers_and_result():
